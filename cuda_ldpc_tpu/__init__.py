@@ -1,8 +1,8 @@
-"""cuda_ldpc_tpu — TPU-native LDPC encode/decode + Monte-Carlo link-simulation framework.
+"""cuda_ldpc_tpu — JAX LDPC encode/decode + Monte-Carlo link-simulation framework.
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of the CUDA reference
+A from-scratch JAX/XLA re-design with the capabilities of the CUDA reference
 gsw4869/CUDA_LDPC (binary QC-LDPC min-sum simulator + non-binary GF(q) EMS/TMM
-simulator), built TPU-first:
+simulator), built around batched tensor programs:
 
 - QC-LDPC codes kept first-class: base matrix of circulant shifts, messages shaped
   ``[batch, edge, Z]`` so the circulant permutation is a gather-free roll along Z.
@@ -14,7 +14,7 @@ simulator), built TPU-first:
 
 Layout:
     models/    code structures (binary QC + non-binary GF(q)) and decoders
-    ops/       compute primitives: channel, GF(q) arithmetic, min-sum, EMS, TMM, kernels
+    ops/       compute primitives: channel, demodulation, min-sum, EMS, TMM, QSPA
     parallel/  device meshes, sharded sweep driver, collective statistics
     utils/     parsers, GF table generation, config, reference-RNG, logging
 """

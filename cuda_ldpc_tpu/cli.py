@@ -98,18 +98,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "Num_Frames_OneTime for sequence parity)")
     b.add_argument("--packed", action="store_true",
                    help="run all SNR points concurrently in packed batches "
-                        "(per-frame sigma; keeps the chip full)")
+                        "(per-frame sigma; keeps the device full)")
     b.add_argument("--tx", choices=["zero", "random"], default=bd.tx,
                    help="random: encode random messages (needs "
                         "--check syndrome)")
-    b.add_argument("--kernel", choices=["auto", "jnp", "pallas"],
-                   default="auto")
     b.add_argument("--msg-dtype", default="float32",
                    choices=["float32", "bfloat16"])
     b.add_argument("--engine", choices=["batch", "stream"], default=bd.engine,
                    help="stream: continuous batching — finished frames leave "
-                        "their slot immediately (fused stateful kernel on "
-                        "TPU; see sim.make_binary_stream_fn)")
+                        "their slot immediately (see "
+                        "sim.make_binary_stream_fn)")
     b.add_argument("--stream-steps", type=int, default=bd.stream_steps,
                    help="decoder iterations per streaming call")
     _add_sweep_args(b, bd.sweep)
@@ -125,10 +123,6 @@ def build_parser() -> argparse.ArgumentParser:
     n.add_argument("--nm", type=int, default=nd.decoder.nm)
     n.add_argument("--nc", type=int, default=nd.decoder.nc)
     n.add_argument("--max-iters", type=int, default=nd.decoder.max_iters)
-    n.add_argument("--kernel", choices=["auto", "jnp", "pallas"],
-                   default=nd.decoder.kernel,
-                   help="pallas: fused VMEM-resident QSPA kernel "
-                        "(qspa/layered_qspa, batch engine)")
     n.add_argument("--n-qam", type=int, default=nd.n_qam,
                    choices=[2, 64, 256])
     n.add_argument("--batch", type=int, default=nd.batch_per_device)
@@ -161,6 +155,8 @@ def main(argv=None) -> int:
             print("  ", c)
         return 0
 
+    from cuda_ldpc_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     if getattr(args, "distributed", False):
         import jax
         jax.distributed.initialize()
@@ -174,7 +170,7 @@ def main(argv=None) -> int:
                 max_iters=args.max_iters, alpha=args.alpha, beta=args.beta,
                 rule=args.rule, schedule=args.schedule, check=args.check,
                 message_only=not args.count_full_codeword,
-                kernel=args.kernel, msg_dtype=args.msg_dtype),
+                msg_dtype=args.msg_dtype),
             sweep=_sweep_from(args, cfg.BinarySimConfig().sweep),
             batch_per_device=args.batch, add_noise=not args.no_noise,
             tx=args.tx, channel=args.channel, engine=args.engine,
@@ -197,8 +193,7 @@ def main(argv=None) -> int:
         simcfg = cfg.NBSimConfig(
             code=args.code,
             decoder=cfg.NBDecoderConfig(method=args.method, nm=args.nm,
-                                        nc=args.nc, max_iters=args.max_iters,
-                                        kernel=args.kernel),
+                                        nc=args.nc, max_iters=args.max_iters),
             sweep=_sweep_from(args, cfg.NBSimConfig().sweep),
             n_qam=args.n_qam, batch_per_device=args.batch, tx=args.tx,
             engine=args.engine, stream_steps=args.stream_steps)

@@ -12,7 +12,7 @@ pivot columns are computed as parity = R @ message (over GF(2) / GF(q)).
 For binary codes the elimination is bit-packed (uint64 words) and the result
 cached under assets/, so even the largest shipped code (J15_L30_Z1280,
 m=19200, n=38400) is a one-time ~minutes cost; the per-batch encode itself is
-a single f32 matmul mod 2 on the MXU.
+a single f32 matmul mod 2 on the device.
 """
 
 from __future__ import annotations
@@ -104,7 +104,13 @@ class BinaryEncoder:
         return cw
 
     def encode_jax(self, msg):
-        """Batched device encode: f32 matmul mod 2 (exact: sums < 2^24)."""
+        """Batched device encode: f32 matmul mod 2.
+
+        Exact at any matmul precision, so no ``precision`` is asked for: the
+        operands are 0/1, which TF32 and bf16 represent exactly, and the
+        products accumulate in f32, exact for integer sums below 2^24
+        (at most k_eff terms).  chip_smoke.py checks it bit-exact against
+        ``encode`` on the GPU."""
         import jax.numpy as jnp
 
         msg = jnp.asarray(msg, dtype=jnp.float32)
@@ -175,7 +181,7 @@ class NBEncoder:
         by a constant is GF(2)-linear, so the whole parity map expands to ONE
         binary matrix over message BITS: Rb[i*m+t, j*m+s] = bit t of
         mul(R[i,j], 2^s).  parity_bits = msg_bits @ Rb.T mod 2 — a single
-        MXU matmul per batch on device (the reference has no encoder at all;
+        matmul per batch on device (the reference has no encoder at all;
         myNBLDPC/src/LDPC_Encoder.cpp:6-36 only packs bits of a fixture)."""
         m = self.code.q_bit
         mul = self.code.mul_table
@@ -194,7 +200,9 @@ class NBEncoder:
         symbol (bit s of free symbol j at index j*q_bit + s — the reference's
         BitToSym packing, myNBLDPC/src/LDPC_Encoder.cpp:6-17).  Returns
         codeword SYMBOLS [..., N] int32.  The parity matmul runs in bf16
-        storage with f32 accumulation (exact: 0/1 operands, sums < 2^24)."""
+        storage with f32 accumulation, exact at any matmul precision: 0/1
+        operands are exact in bf16 and the integer sums stay below 2^24.
+        chip_smoke.py checks it bit-exact against ``encode`` on the GPU."""
         import jax.numpy as jnp
 
         m = self.code.q_bit

@@ -1,13 +1,13 @@
-"""Binary QC-LDPC code structure, kept first-class for the TPU.
+"""Binary QC-LDPC code structure, kept first-class for the batched decoders.
 
 The reference flattens the circulant structure into a per-variable-node address
 table (bldpc_实习/Simulation.cu:356-387) so one CUDA thread can gather its edges.
-On TPU we keep the J x L base matrix of shifts and shape every message tensor
+Here we keep the J x L base matrix of shifts and shape every message tensor
 ``[batch, edge, Z]``: the circulant permutation "VN z of column l connects to CN
 row (z - shift) mod Z of block row j" (Simulation.cu:380) becomes a gather-free
 ``jnp.roll`` along the trailing Z (lane) axis.
 
-Derived dimensions use the consistent invariant the kernels rely on —
+Derived dimensions use the consistent invariant the decoders rely on —
 ``n = L*Z``, ``m = J*Z``, ``k = (L-J)*Z`` — rather than the reference's
 independently (and, as committed, inconsistently) hardcoded macros
 (define.cuh:23-25; see SURVEY.md section 2.1).

@@ -1,7 +1,4 @@
-"""Compute ops.  The jnp reference paths are imported eagerly; the fused
-Pallas kernel families (pallas_minsum, pallas_minsum_stream, pallas_qspa,
-pallas_qspa_qc, pallas_qspa_stream, pallas_nbms) are imported lazily by the
-sim dispatch so CPU-only use never pays the pallas import."""
+"""Compute ops: channel, demodulation and the jnp decoder cores."""
 
 from cuda_ldpc_tpu.ops import channel, demod, minsum, nb_decode
 

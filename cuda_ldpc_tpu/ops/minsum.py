@@ -139,9 +139,9 @@ def _check(code, hard, check: str):
 
 def _fake_int8(x: jax.Array, scale: float) -> jax.Array:
     """Simulate int8 message storage: round to the int8 grid (step 1/scale),
-    clip to +-127/scale.  Used for the quantization FER study (BENCH.md) —
-    Mosaic cannot compile sub-32-bit compares, so real int8 storage awaits
-    compiler support; this measures what it WOULD cost in FER."""
+    clip to +-127/scale.  Used for the quantization FER study
+    (VALIDATION.md): it measures what real int8 message storage would cost
+    in FER before any decoder stores int8."""
     s = jnp.asarray(scale, x.dtype)
     return jnp.clip(jnp.round(x * s), -127.0, 127.0) / s
 
@@ -192,31 +192,6 @@ def decode_flooding(chan: jax.Array, code: QCBinaryCode, num_iters: int,
     ok0 = jnp.zeros((B,), dtype=bool)
     it, _, hard, ok = jax.lax.while_loop(cond, body, (jnp.int32(0), R0, hard0, ok0))
     return DecodeResult(hard.astype(jnp.int8), ok, it)
-
-
-def make_flooding_fn(code: QCBinaryCode, num_iters: int, alpha: float = 1.0,
-                     beta: float = 0.0, check: str = "syndrome",
-                     early_stop: bool = True, msg_dtype=None,
-                     kernel: str = "auto"):
-    """Jitted flooding decoder factory.  ``kernel``: 'jnp' forces the pure-jnp
-    path; 'pallas' the fused Pallas kernels (TPU only); 'auto' picks pallas on
-    TPU when available."""
-    if kernel in ("pallas", "auto"):
-        try:
-            from cuda_ldpc_tpu.ops import pallas_minsum
-            use = kernel == "pallas" or (jax.default_backend() == "tpu"
-                                         and pallas_minsum.supports(code))
-            if use:
-                return jax.jit(functools.partial(
-                    pallas_minsum.decode_flooding, code=code,
-                    num_iters=num_iters, alpha=alpha, beta=beta, check=check,
-                    early_stop=early_stop, msg_dtype=msg_dtype))
-        except ImportError:
-            if kernel == "pallas":
-                raise
-    return jax.jit(functools.partial(
-        decode_flooding, code=code, num_iters=num_iters, alpha=alpha,
-        beta=beta, check=check, early_stop=early_stop, msg_dtype=msg_dtype))
 
 
 class BinaryCore(NamedTuple):

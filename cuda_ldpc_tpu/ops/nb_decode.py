@@ -15,7 +15,7 @@ Numerics reproduce the CPU reference decoders (myNBLDPC/src/LDPC_Decoder.cpp):
 * layered TMM (Decoding_layered_TMM, :544-702): identical CN math on a serial
   row schedule with immediate LLR write-back.
 
-TPU-first reformulation (not a port): the reference sorts every edge's full
+Tensor reformulation (not a port): the reference sorts every edge's full
 q-vector with bubble sort and recursively enumerates configuration sets
 (ConstructConf, :319-359).  Here each CN works in the *delta domain*: per-edge
 offset messages W[d][y] = U[d][y ^ best] - best_val (a gather along the q lane
@@ -149,9 +149,8 @@ def _syndrome_ok(g: _Graph, hard: jax.Array) -> jax.Array:
     (myNBLDPC/src/LDPC_Decoder.cpp:218-238).  hard: [B, N] int32.
 
     The per-edge table lookup h_perm[m, d, hard] is a one-hot masked
-    reduction, NOT take_along_axis: a dynamic gather along the q lane axis
-    serializes on TPU and was measured to cost more than the whole QSPA CN
-    update per iteration (~3.1 vs ~2.7 ms/sweep at B=1024 on GF(64))."""
+    reduction rather than take_along_axis (a gather along the q axis); which
+    of the two is faster on the GPU is not measured yet (ROADMAP S4)."""
     hard_cn = hard[:, g.cn_links]               # [B, M, dc] (static gather)
     perm = jnp.asarray(g.h_perm)                # [M, dc, q]; masked rows all 0
     oh = hard_cn[..., None] == jnp.arange(g.q, dtype=hard_cn.dtype)
@@ -163,15 +162,14 @@ def _syndrome_ok(g: _Graph, hard: jax.Array) -> jax.Array:
 
 
 def _perm_fwd(x, h_onehot):
-    """y[k] = x[h*k] as a one-hot contraction on the MXU (TPU gathers along q
-    are serial and dominate the runtime; a [q, q] one-hot matmul is ~free).
+    """y[k] = x[h*k] as a one-hot contraction (a [q, q] one-hot matmul in
+    place of a gather along q; ROADMAP S4 weighs the two on the GPU).
     x: [B, M', dc, q(v)]; h_onehot: [M', dc, q(k), q(v)] -> [B, M', dc, q(k)].
 
-    precision=HIGHEST makes the permutation EXACT on device (one 1.0 times a
-    3xbf16-decomposed f32 recovers all 24 mantissa bits; the default bf16
-    matmul rounds the permuted values, which cascades through the max-domain
-    decoders' argmax->xor-shift chains and was measured as device-vs-jnp
-    convergence divergence — VALIDATION.md round 5)."""
+    precision=HIGHEST makes the permutation EXACT: one 1.0 times a full f32
+    keeps all 24 mantissa bits.  A reduced-precision product (TF32 on the
+    GPU, bf16 elsewhere) rounds the permuted values, which cascades through
+    the max-domain decoders' argmax->xor-shift chains."""
     return jnp.einsum("bmdv,mdkv->bmdk", x, h_onehot,
                       preferred_element_type=x.dtype,
                       precision=jax.lax.Precision.HIGHEST)
@@ -397,7 +395,7 @@ def _qspa_cn_core(v2c_cn, mask, h_onehot, had, dc: int, q: int,
     The check constraint sum_d h_d x_d = 0 makes each c2v message the XOR-group
     convolution of the other edges' pmfs of y_d = h_d x_d; the Walsh-Hadamard
     transform diagonalizes that convolution, so the whole update is two [q, q]
-    Hadamard matmuls (MXU) around an exclusive product across edges.  This is
+    Hadamard matmuls around an exclusive product across edges.  This is
     the exact decoder the reference's decoder_method=2 approximates in the
     max-sum domain (myNBLDPC/src/Simulation.cpp:64 runs EMS with Nm=q,
     Nc=dc-1) — the BASELINE.json 'FFT-QSPA decode' config; no counterpart
@@ -411,10 +409,11 @@ def _qspa_cn_core(v2c_cn, mask, h_onehot, had, dc: int, q: int,
     # padded edges carry the delta-at-0 pmf = the convolution identity
     ident = jnp.where(jnp.arange(q) == 0, 1.0, 0.0)
     p = jnp.where(maskq, p, ident)
-    # precision=HIGHEST is load-bearing: the TPU's default bf16 matmul
-    # destroys the Hadamard transform's cancellation (spectra sit near 1 and
-    # the inverse transform differences are ~1e-4..1e-6), measured as FER
-    # 6.6e-2 vs 0/512 at 2 dB on the GF(64) code
+    # precision=HIGHEST is load-bearing: a reduced-precision product (TF32
+    # on the GPU, bf16 elsewhere) destroys the Hadamard transform's
+    # cancellation (spectra sit near 1 and the inverse transform differences
+    # are ~1e-4..1e-6); with bf16 products FER was 6.6e-2 vs 0/512 at 2 dB
+    # on the GF(64) code
     hi = jax.lax.Precision.HIGHEST
     F = jnp.einsum("bmdq,qk->bmdk", p, had,
                    preferred_element_type=jnp.float32, precision=hi)
@@ -452,8 +451,7 @@ def _tmm_cn_core(v2c_cn, mask, h_perm, h_onehot, dc: int, q: int):
     # the reference's strict-< scan, :711-718), mapped through h to CN domain
     qmin = jnp.argmin(v2c, axis=-1).astype(jnp.int32)    # [B, M', dc]
     vmin = jnp.min(v2c, axis=-1)
-    # h_perm[m, d, qmin] as a one-hot masked reduction (dynamic lane gathers
-    # serialize on TPU; see _syndrome_ok)
+    # h_perm[m, d, qmin] as a one-hot masked reduction (see _syndrome_ok)
     oh = qmin[..., None] == jnp.arange(q, dtype=qmin.dtype)
     Zn = jnp.sum(jnp.where(oh, h_perm[None], 0), axis=-1)
     Zn = jnp.where(maskd, Zn, 0)
@@ -476,12 +474,10 @@ def _tmm_cn_core(v2c_cn, mask, h_perm, h_onehot, dc: int, q: int):
     # when the two min columns differ and the values differ (the reference's
     # strict-inequality branches skip exact ties, :793-811).
     #
-    # TPU-first form: an unrolled running min over j with CONSTANT xor
-    # shifts.  The one-shot formulation materialized [B, M', q, q] candidate
-    # tensors in HBM every iteration plus q-lane gathers — measured as the
-    # reason the TMM family sat at ~600 frames/s while QSPA ran 37k
-    # (BENCH.md); here every intermediate is [B, M', q] and XLA fuses the
-    # whole scan.  Results are bit-identical: same candidate values, and the
+    # An unrolled running min over j with CONSTANT xor shifts: the one-shot
+    # formulation materializes [B, M', q, q] candidate tensors in device
+    # memory every iteration plus q-lane gathers; here every intermediate is
+    # [B, M', q] and XLA fuses the whole scan.  Results are bit-identical: same candidate values, and the
     # strict `cand < I2` update keeps the FIRST minimizing j exactly like
     # jnp.argmin's first-tie rule.
     lane = jnp.arange(q, dtype=jnp.int32)
@@ -606,7 +602,7 @@ def build_core(code: NBCode, method: str, nm: int = 2,
         # share no VN).  Fresh information still propagates between groups
         # within one sweep, so convergence tracks the serial layered
         # schedule, but the sweep is ~len(groups) vectorized updates instead
-        # of M serial ones.  TPU-first scheduling; no reference counterpart
+        # of M serial ones.  No reference counterpart
         # (the reference's layered TMM is strictly serial,
         # myNBLDPC/src/LDPC_Decoder.cpp:544-702).
         tmm = method == "glayered_tmm"

@@ -1,8 +1,4 @@
 from cuda_ldpc_tpu.parallel.mesh import (batch_sharding, get_mesh,
                                          host_local_batch)
-from cuda_ldpc_tpu.parallel.shard import (shard_binary_decode,
-                                          shard_nb_decode,
-                                          shard_stream_step)
 
-__all__ = ["get_mesh", "batch_sharding", "host_local_batch",
-           "shard_binary_decode", "shard_nb_decode", "shard_stream_step"]
+__all__ = ["get_mesh", "batch_sharding", "host_local_batch"]

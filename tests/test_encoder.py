@@ -94,8 +94,7 @@ def test_nb_random_tx_step_counts_errors_fairly():
     code = NBCode.from_registry("BDS.576.288.GF.64")
     s = cfg.NBSimConfig(code=code.name, tx="random", batch_per_device=16,
                         decoder=cfg.NBDecoderConfig(method="qspa",
-                                                    max_iters=10,
-                                                    kernel="jnp"))
+                                                    max_iters=10))
     fn, B = simmod.make_nb_step(code, s)
     out = np.asarray(fn(jax.random.PRNGKey(0), 0.28))   # ~11 dB: error-free
     errsyms, errf, falsef, alarmf, iters = (int(x) for x in out)
@@ -114,8 +113,7 @@ def test_nb_random_tx_stream_smoke():
     s = cfg.NBSimConfig(code=code.name, tx="random", batch_per_device=8,
                         engine="stream", stream_steps=4,
                         decoder=cfg.NBDecoderConfig(method="qspa",
-                                                    max_iters=6,
-                                                    kernel="jnp"))
+                                                    max_iters=6))
     init_fn, run_fn, drain_fn, B = simmod.make_nb_stream_fn(code, s)
     key = jax.random.PRNGKey(1)
     st = init_fn(key, 0.30)
@@ -137,7 +135,7 @@ def test_nb_random_tx_fer_matches_zero_tx():
 
     base = dict(code="BDS.576.288.GF.64", batch_per_device=16,
                 decoder=cfg.NBDecoderConfig(method="layered_qspa",
-                                            max_iters=12, kernel="jnp"),
+                                            max_iters=12),
                 sweep=cfg.SweepConfig(snr_start=1.4, snr_step=1.0,
                                       snr_stop=1.4, least_error_frames=60,
                                       least_test_frames=2000,

@@ -1,13 +1,15 @@
 """The driver contract file must stay importable and runnable."""
 
+import pathlib
 import sys
 
 import jax
 
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+import __graft_entry__ as ge  # noqa: E402
+
 
 def test_entry_compiles():
-    sys.path.insert(0, "/root/repo")
-    import __graft_entry__ as ge
     fn, args = ge.entry()
     out = jax.jit(fn)(*args)
     jax.block_until_ready(out)
@@ -15,6 +17,4 @@ def test_entry_compiles():
 
 
 def test_dryrun_multichip_8():
-    sys.path.insert(0, "/root/repo")
-    import __graft_entry__ as ge
     ge.dryrun_multichip(8)

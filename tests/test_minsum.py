@@ -141,7 +141,7 @@ def test_layered_rules_decode_allzero(rule):
 
 
 def test_int8_quantized_messages_decode():
-    """Fake-int8 message quantization (the BENCH.md FER study knob): at a
+    """Fake-int8 message quantization (the VALIDATION.md FER study knob): at a
     comfortable SNR the quantized decoder still corrects everything."""
     code = small_shipped_code()
     sigma = channel.sigma_from_snr(5.5, code.rate, "ebn0")

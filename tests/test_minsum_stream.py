@@ -1,15 +1,18 @@
-"""Stateful fused binary stream step (interpret mode on CPU) vs a
-loop-level reference driving minsum.build_core with the stream engine's
-per-iteration semantics (decide -> check -> account -> frozen step)."""
+"""Binary continuous-batching engine (sim.make_binary_stream_fn) vs a
+loop-level reference driving minsum.build_core with the engine's
+per-iteration semantics (decide -> check -> account -> frozen step), and the
+core itself vs the batch decoders."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from cuda_ldpc_tpu import config as cfg, sim
 from cuda_ldpc_tpu.models.qc_binary import QCBinaryCode
-from cuda_ldpc_tpu.ops import minsum, pallas_minsum_stream
-from cuda_ldpc_tpu.ops.pallas_minsum import _lane_pad
+from cuda_ldpc_tpu.ops import minsum
 
 
 @pytest.fixture(scope="module")
@@ -17,89 +20,110 @@ def code():
     return QCBinaryCode.from_registry("J4_L24_Z96")
 
 
-def _chan(code, B, sigma, seed=0):
-    rng = np.random.default_rng(seed)
-    return (1.0 + sigma * rng.normal(size=(B, code.L, code.Z))
-            ).astype(np.float32)
+def _stream_cfg(schedule, check, rule, max_iters, B=8, steps=4):
+    return cfg.BinarySimConfig(
+        code="J4_L24_Z96", batch_per_device=B, engine="stream",
+        stream_steps=steps,
+        decoder=cfg.BinaryDecoderConfig(max_iters=max_iters, check=check,
+                                        schedule=schedule, rule=rule))
 
 
-def _ref_stream(code, chan_bLZ, k, max_iters, check, schedule):
-    """Python loop over minsum.build_core with the kernel's accounting."""
-    B = chan_bLZ.shape[0]
-    core = minsum.build_core(code, schedule=schedule)
-    carry = core.init(jnp.asarray(chan_bLZ))
-    t = np.zeros(B, np.int32)
-    done = np.zeros(B, bool)
-    okf = np.zeros(B, bool)
-    hard = None
-    for _ in range(k):
-        if done.all():
-            break
-        hard, totals = core.decide(carry)
+def _ref_drain(code, core, carry, cw, max_iters, check, msg_cols):
+    """Python loop over the core: every alive slot runs until its check
+    passes or it reaches max_iters; returns the engine's six counters."""
+    decide, step = jax.jit(core.decide), jax.jit(core.step)
+    B = cw.shape[0]
+    t = np.zeros(B, np.int64)
+    alive = np.ones(B, bool)
+    counters = np.zeros(6, np.int64)
+    for _ in range(max_iters + 1):
+        hard, totals = decide(carry)
         ok = np.asarray(minsum._check(code, hard, check))
-        fin = ~done & (ok | (t >= max_iters))
-        okf = np.where(fin, ok, okf)
-        done |= fin
-        cont = ~done
-        t = t + cont
-        carry = core.step(carry, totals, jnp.asarray(cont))
-    return np.asarray(hard), t, done, okf
+        done = alive & (ok | (t >= max_iters))
+        errbits = np.sum(np.asarray(hard)[:, :msg_cols]
+                         != cw[:, :msg_cols], axis=(1, 2))
+        has_err = errbits > 0
+        counters += [done.sum(), (done & has_err).sum(),
+                     (done * errbits).sum(), (done & has_err & ok).sum(),
+                     (done & ~has_err & ~ok).sum(), (done * t).sum()]
+        cont = alive & ~done
+        carry = step(carry, totals, jnp.asarray(cont))
+        alive = cont
+        t = np.where(cont, t + 1, t)
+    assert not alive.any()
+    return counters
 
 
+@pytest.mark.parametrize("rule", ["minsum", "bp"])
 @pytest.mark.parametrize("schedule", ["flooding", "layered"])
 @pytest.mark.parametrize("check", ["zero", "syndrome"])
-def test_stream_step_matches_core(code, schedule, check):
-    B, k, max_it = 8, 6, 12
-    chan = _chan(code, B, sigma=0.42, seed=3)
-    Zp = _lane_pad(code.Z)
-    # kernel state: col-major, lane-padded with zeros
-    chan_cm = np.zeros((code.L, B, Zp), np.float32)
-    chan_cm[:, :, :code.Z] = chan.transpose(1, 0, 2)
-    R0 = jnp.zeros((code.num_edges, B, Zp), jnp.float32)
-    z = jnp.zeros((B, 128), jnp.int32)
-    chan2, R2, hard, t2, d2, o2 = pallas_minsum_stream.stream_step(
-        jnp.asarray(chan_cm), R0, z, z, z, code, k=k, max_iters=max_it,
-        check=check, layered=(schedule == "layered"), interpret=True)
-    rh, rt, rd, ro = _ref_stream(code, chan, k, max_it, check, schedule)
-    got_hard = np.asarray(hard)[:, :, :code.Z].transpose(1, 0, 2)
-    np.testing.assert_array_equal(np.asarray(t2)[:, 0], rt)
-    np.testing.assert_array_equal(np.asarray(d2)[:, 0], rd.astype(np.int32))
-    np.testing.assert_array_equal(np.asarray(o2)[:, 0], ro.astype(np.int32))
-    np.testing.assert_array_equal(got_hard.astype(bool), rh.astype(bool))
-    # finished slots leave with zeroed messages (driver contract)
-    Rn = np.asarray(R2)
-    assert (Rn[:, rd, :] == 0).all()
+def test_drain_matches_loop_reference(code, schedule, check, rule):
+    max_it = 10
+    scfg = _stream_cfg(schedule, check, rule, max_it)
+    mesh = sim.get_mesh(jax.devices()[:1])
+    init_fn, run_fn, drain_fn, B = sim.make_binary_stream_fn(code, scfg,
+                                                             mesh)
+    key = jax.random.PRNGKey(3)
+    sigma = 0.42
+    state = init_fn(key, sigma)
+    (carry, cw), _, _ = state
+    core = minsum.build_core(code, rule=rule, schedule=schedule)
+    ref = _ref_drain(code, core, carry, np.asarray(cw), max_it, check,
+                     code.L - code.J)
+    _, got = drain_fn(state, jax.random.fold_in(key, 1), sigma)
+    np.testing.assert_array_equal(np.asarray(got), ref)
+    assert ref[0] == B                     # every slot finished exactly once
 
 
-def test_stream_step_state_persists(code):
-    """Two k=3 calls == one k=6 call (state round-trips through HBM)."""
-    B, max_it = 8, 12
-    chan = _chan(code, B, sigma=0.60, seed=9)
-    Zp = _lane_pad(code.Z)
-    chan_cm = np.zeros((code.L, B, Zp), np.float32)
-    chan_cm[:, :, :code.Z] = chan.transpose(1, 0, 2)
-    z = jnp.zeros((B, 128), jnp.int32)
-    R0 = jnp.zeros((code.num_edges, B, Zp), jnp.float32)
-    one = pallas_minsum_stream.stream_step(
-        jnp.asarray(chan_cm), R0, z, z, z, code, k=6, max_iters=max_it,
-        check="syndrome", interpret=True)
-    st = (jnp.asarray(chan_cm), R0, z, z, z)
-    d1 = None
-    for _ in range(2):
-        c, R, hard, t, d, o = pallas_minsum_stream.stream_step(
-            *st, code, k=3, max_iters=max_it, check="syndrome",
-            interpret=True)
-        if d1 is None:
-            d1 = np.asarray(d)[:, 0] == 1
-        st = (c, R, t, d, o)
-    np.testing.assert_array_equal(np.asarray(one[3])[:, 0],
-                                  np.asarray(t)[:, 0])
-    np.testing.assert_array_equal(np.asarray(one[4])[:, 0],
-                                  np.asarray(d)[:, 0])
-    # frames that finished in call 1 had their messages zeroed (the driver
-    # refills them before the next call, so their later hard is undefined);
-    # frames alive into call 2 must match the single-call decode exactly
-    alive = ~d1
-    np.testing.assert_array_equal(np.asarray(one[2])[:, alive],
-                                  np.asarray(hard)[:, alive])
-    assert alive.any()
+def test_run_then_drain_accounts_every_frame(code):
+    """run refills finished slots every iteration; run + drain counts each
+    started frame exactly once (B initial frames plus every refill)."""
+    scfg = _stream_cfg("flooding", "zero", "minsum", 6, B=16, steps=5)
+    mesh = sim.get_mesh(jax.devices()[:1])
+    init_fn, run_fn, drain_fn, B = sim.make_binary_stream_fn(code, scfg,
+                                                             mesh)
+    key = jax.random.PRNGKey(0)
+    state = init_fn(key, 0.4)
+    state, c1 = run_fn(state, jax.random.fold_in(key, 1), 0.4)
+    (_, _), t, alive = state
+    in_flight = int(np.sum(np.asarray(alive)))
+    state, c2 = drain_fn(state, jax.random.fold_in(key, 2), 0.4)
+    c1, c2 = np.asarray(c1), np.asarray(c2)
+    assert in_flight == B                  # run keeps every slot busy
+    assert c2[0] == B                      # drain finishes each slot once
+    assert c1[0] >= 1                      # fast frames finished and left
+    assert (c1[1] <= c1[0]) and (c2[1] <= c2[0])
+    assert c1[5] <= c1[0] * 6 and c2[5] <= c2[0] * 6
+
+
+@pytest.mark.parametrize("rule", ["minsum", "bp"])
+@pytest.mark.parametrize("schedule", ["flooding", "layered"])
+def test_core_reproduces_batch_decoder(code, schedule, rule):
+    """build_core driven with every frame active reproduces the batch
+    decoder's decisions iteration for iteration."""
+    sigma = 0.6
+    rng = np.random.default_rng(11)
+    chan = (1.0 + sigma * rng.standard_normal((4, code.L, code.Z))
+            ).astype(np.float32)
+    if rule == "bp":
+        chan = chan * np.float32(2.0 / sigma ** 2)
+    core = minsum.build_core(code, rule=rule, schedule=schedule)
+    carry = core.init(jnp.asarray(chan))
+    cont = jnp.ones(4, bool)
+    decode = (minsum.decode_layered if schedule == "layered"
+              else minsum.decode_flooding)
+    dec = jax.jit(functools.partial(decode, code=code, check="none",
+                                    early_stop=False, rule=rule),
+                  static_argnames="num_iters")
+    step = jax.jit(core.step)
+    for it in range(1, 4):
+        if schedule == "flooding":
+            hard, totals = core.decide(carry)     # flooding decides first
+            carry = step(carry, totals, cont)
+        else:
+            _, totals = core.decide(carry)
+            carry = step(carry, totals, cont)
+            hard, _ = core.decide(carry)          # layered decides after
+        ref = dec(jnp.asarray(chan), num_iters=it)
+        np.testing.assert_array_equal(np.asarray(hard).astype(np.int8),
+                                      np.asarray(ref.hard))

@@ -1,159 +1,98 @@
-"""Stateful fused NB stream step (interpret mode on CPU) vs a loop-level
-reference driving nb_decode.build_core with the stream engine's
-per-iteration semantics (decide -> GF syndrome -> account -> frozen step).
+"""NB continuous-batching engine (sim.make_nb_stream_fn) vs a loop-level
+reference driving nb_decode.build_core with the engine's per-iteration
+semantics (decide -> GF syndrome -> account -> frozen step).
 
-Mirror of tests/test_minsum_stream.py for ops/pallas_qspa_stream (VERDICT-r4
-item 2: the NB stream engine driving the fused QSPA kernel)."""
-
-import functools
+Mirror of tests/test_minsum_stream.py for the non-binary decoders."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from cuda_ldpc_tpu import config as cfg, sim
 from cuda_ldpc_tpu.models.nb_code import NBCode
-from cuda_ldpc_tpu.ops import demod, nb_decode, pallas_qspa, pallas_qspa_stream
-from cuda_ldpc_tpu.utils.constellations import constellation
+from cuda_ldpc_tpu.ops import nb_decode
 
 
-def _llr(code, B, sigma, seed=0):
-    tx = np.zeros(code.bit_length, dtype=np.int64)
-    return demod.nb_channel_llr(jax.random.PRNGKey(seed), tx,
-                                constellation(2), sigma, batch=B, q=code.q)
+def _ref_drain(core, carry, tx, max_iters):
+    decide, step = jax.jit(core.decide), jax.jit(core.step)
+    B = tx.shape[0]
+    t = np.zeros(B, np.int64)
+    alive = np.ones(B, bool)
+    counters = np.zeros(6, np.int64)
+    for _ in range(max_iters + 1):
+        hard, llr = decide(carry)
+        ok = np.asarray(nb_decode._syndrome_ok(core.g, hard))
+        done = alive & (ok | (t >= max_iters))
+        errsyms = np.sum(np.asarray(hard) != tx, axis=1)
+        has_err = errsyms > 0
+        counters += [done.sum(), (done & has_err).sum(),
+                     (done * errsyms).sum(), (done & has_err & ok).sum(),
+                     (done & ~has_err & ~ok).sum(), (done * t).sum()]
+        cont = alive & ~done
+        carry = step(carry, llr, jnp.asarray(cont))
+        alive = cont
+        t = np.where(cont, t + 1, t)
+    assert not alive.any()
+    return counters
 
 
-def _ref_stream(code, L, k, max_iters, method):
-    """Python loop over nb_decode.build_core with the kernel's accounting."""
-    B = L.shape[0]
-    core = nb_decode.build_core(code, method)
-    carry = core.init(L)
-    t = np.zeros(B, np.int32)
-    done = np.zeros(B, bool)
-    okf = np.zeros(B, bool)
-    hard = None
-    for _ in range(k):
-        if done.all():
-            break
-        hard_new, llr = core.decide(carry)
-        hard = (np.asarray(hard_new) if hard is None
-                else np.where(done[:, None], hard, np.asarray(hard_new)))
-        ok = np.asarray(nb_decode._syndrome_ok(core.g, jnp.asarray(hard)))
-        fin = ~done & (ok | (t >= max_iters))
-        okf = np.where(fin, ok, okf)
-        done |= fin
-        cont = ~done
-        t = t + cont
-        carry = core.step(carry, llr, jnp.asarray(cont))
-    return hard, t, done, okf
+CASES = [("BDS.576.288.GF.64", "qspa", 1.5),
+         ("BDS.576.288.GF.64", "layered_qspa", 1.5),
+         ("BDS.576.288.GF.64", "ems", 3.0),
+         ("BDS.576.288.GF.64", "tmm", 3.0),
+         ("LDPC_N96_K48_GF256_d1_exp", "qspa", 4.0),
+         ("LDPC_N96_K48_GF256_d1_exp", "layered_qspa", 4.0)]
 
 
-def _run_kernel(code, L, k, max_iters, layered, plan):
-    B = L.shape[0]
-    chan = pallas_qspa_stream.pack_chan(jnp.asarray(L), code)
-    qp = pallas_qspa_stream._lane_pad(code.q)
-    C0 = jnp.zeros((plan.E, B, qp), jnp.float32)
-    z = jnp.zeros((B, 128), jnp.int32)
-    tile = min(8, B)
-    out = pallas_qspa_stream.stream_step(
-        chan, C0, z, z, z, code, k=k, max_iters=max_iters, layered=layered,
-        tile_b=tile, interpret=True)
-    return out
-
-
-def _hard_syms(hard_oh, plan):
-    hard = np.argmax(np.asarray(hard_oh), axis=2).astype(np.int32).T
-    if plan.scheme == "logrot":
-        hard = np.asarray(plan.sym, np.int32)[hard]
-    return hard
-
-
-CASES = [("BDS.576.288.GF.64", "qspa", 0.9),
-         ("BDS.576.288.GF.64", "layered_qspa", 0.9),
-         ("LDPC_N96_K48_GF256_d1_exp", "qspa", 0.55),
-         ("LDPC_N96_K48_GF256_d1_exp", "layered_qspa", 0.55)]
-
-
-@pytest.mark.parametrize("name,method,sigma", CASES)
-def test_stream_step_matches_core(name, method, sigma):
+@pytest.mark.parametrize("name,method,snr", CASES)
+def test_drain_matches_loop_reference(name, method, snr):
     code = NBCode.from_registry(name)
-    plan = pallas_qspa.make_plan(code)
-    B, k, max_it = 8, 4, 6
-    L = _llr(code, B, sigma, seed=3)
-    chan2, C2, hard_oh, t2, d2, o2 = _run_kernel(
-        code, L, k, max_it, method == "layered_qspa", plan)
-    rh, rt, rd, ro = _ref_stream(code, L, k, max_it, method)
-    np.testing.assert_array_equal(np.asarray(t2)[:, 0], rt)
-    np.testing.assert_array_equal(np.asarray(d2)[:, 0], rd.astype(np.int32))
-    np.testing.assert_array_equal(np.asarray(o2)[:, 0], ro.astype(np.int32))
-    np.testing.assert_array_equal(_hard_syms(hard_oh, plan), rh)
-    # finished slots leave with zeroed messages (driver refill contract)
-    assert (np.asarray(C2)[:, rd, :] == 0).all()
+    max_it = 6
+    scfg = cfg.NBSimConfig(
+        code=name, batch_per_device=8, engine="stream", stream_steps=3,
+        decoder=cfg.NBDecoderConfig(method=method, max_iters=max_it))
+    from cuda_ldpc_tpu.ops import channel
+    sigma = channel.sigma_from_snr(snr, code.rate, "ebn0", 1.0)
+    init_fn, run_fn, drain_fn, B = sim.make_nb_stream_fn(
+        code, scfg, sim.get_mesh(jax.devices()[:1]))
+    key = jax.random.PRNGKey(5)
+    state = init_fn(key, sigma)
+    (carry, tx), _, _ = state
+    core = nb_decode.build_core(code, method)
+    ref = _ref_drain(core, carry, np.asarray(tx), max_it)
+    _, got = drain_fn(state, jax.random.fold_in(key, 1), sigma)
+    np.testing.assert_array_equal(np.asarray(got), ref)
+    assert ref[0] == B
 
 
-def test_stream_step_state_persists():
-    """Two k=2 calls == one k=4 call (state round-trips through HBM)."""
-    code = NBCode.from_registry("BDS.576.288.GF.64")
-    plan = pallas_qspa.make_plan(code)
-    B, max_it = 8, 6
-    L = _llr(code, B, 0.95, seed=11)
-    one = _run_kernel(code, L, 4, max_it, False, plan)
-    chan = pallas_qspa_stream.pack_chan(jnp.asarray(L), code)
-    qp = pallas_qspa_stream._lane_pad(code.q)
-    C = jnp.zeros((plan.E, B, qp), jnp.float32)
-    t = d = o = jnp.zeros((B, 128), jnp.int32)
-    step = functools.partial(pallas_qspa_stream.stream_step, code=code, k=2,
-                             max_iters=max_it, tile_b=8, interpret=True)
-    for _ in range(2):
-        chan, C, hard_oh, t, d, o = step(chan, C, t, d, o)
-    for got, ref in zip((chan, C, hard_oh, t, d, o), one):
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-
-
-def test_sim_stream_dispatch_and_counters():
-    """sim._make_nb_stream_pallas end-to-end (kernel='pallas', interpret):
-    run+drain counters account every started frame exactly once.  (The jnp
-    stream engine refills finished slots every ITERATION while the fused
-    engine refills per CALL, so their frame tallies are not comparable;
-    loop-level parity of the kernel itself is test_stream_step_matches_core.)"""
-    from cuda_ldpc_tpu import config as cfg, sim
+def test_run_then_drain_accounts_every_frame():
+    """run refills finished slots every iteration; run + drain counts every
+    started frame exactly once, and the drained state has no live slot."""
     code = NBCode.from_registry("BDS.576.288.GF.64")
     scfg = cfg.NBSimConfig(
         code="BDS.576.288.GF.64",
-        decoder=cfg.NBDecoderConfig(method="layered_qspa", max_iters=4,
-                                    kernel="pallas"),
+        decoder=cfg.NBDecoderConfig(method="layered_qspa", max_iters=4),
         batch_per_device=16, engine="stream", stream_steps=3)
     key = jax.random.PRNGKey(0)
     sigma = 0.9
-    old = sim.PALLAS_INTERPRET
-    sim.PALLAS_INTERPRET = True
-    try:
-        init_fn, run_fn, drain_fn, B = sim.make_nb_stream_fn(
-            code, scfg, sim.get_mesh(jax.devices()[:1]))
-        assert B == 16
-        state = init_fn(key, sigma)
-        state, c1 = run_fn(state, jax.random.fold_in(key, 1), sigma)
-        state, c2 = drain_fn(state, jax.random.fold_in(key, 2), sigma)
-    finally:
-        sim.PALLAS_INTERPRET = old
+    init_fn, run_fn, drain_fn, B = sim.make_nb_stream_fn(
+        code, scfg, sim.get_mesh(jax.devices()[:1]))
+    assert B == 16
+    state = init_fn(key, sigma)
+    state, c1 = run_fn(state, jax.random.fold_in(key, 1), sigma)
+    state, c2 = drain_fn(state, jax.random.fold_in(key, 2), sigma)
     c1, c2 = np.asarray(c1), np.asarray(c2)
-    # at sigma=0.9 every frame converges within the budget: run counts the
-    # slots that finished inside its 3 passes, the refilled slots finish in
-    # drain; errors never exceed frames; iter sums are sane
-    assert c1[0] + c2[0] >= B
+    assert c2[0] == B                      # each slot drained exactly once
     assert 0 <= c1[1] <= c1[0] and 0 <= c2[1] <= c2[0]
     assert c1[5] <= c1[0] * 4 and c2[5] <= c2[0] * 4
-    # state after drain reports every slot finished
-    d2 = np.asarray(state[3])
-    assert (d2[:, 0] == 1).all()
+    _, _, alive = state
+    assert not np.asarray(alive).any()
 
 
-def test_nb_stream_pallas_raises_on_unsupported_method():
-    from cuda_ldpc_tpu import config as cfg, sim
+def test_nb_decoder_rejects_unknown_method():
     code = NBCode.from_registry("BDS.576.288.GF.64")
-    scfg = cfg.NBSimConfig(
-        code="BDS.576.288.GF.64",
-        decoder=cfg.NBDecoderConfig(method="tmm", kernel="pallas"),
-        engine="stream")
-    with pytest.raises(ValueError, match="fused stream"):
-        sim.make_nb_stream_fn(code, scfg, sim.get_mesh(jax.devices()[:1]))
+    scfg = cfg.NBSimConfig(decoder=cfg.NBDecoderConfig(method="nope"),
+                           batch_per_device=8)
+    with pytest.raises(ValueError, match="unknown NB decoder method"):
+        sim.make_nb_step(code, scfg, sim.get_mesh(jax.devices()[:1]))

@@ -260,8 +260,7 @@ def test_binary_stream_fer_matches_batch():
                                       max_frames=20000,
                                       display_step=10**6, seed=11),
                 batch_per_device=32)
-    dec = cfg.BinaryDecoderConfig(max_iters=20, check="syndrome",
-                                  kernel="jnp")
+    dec = cfg.BinaryDecoderConfig(max_iters=20, check="syndrome")
     rb = sim.run_binary_sweep(cfg.BinarySimConfig(
         decoder=dec, engine="batch", **base), quiet=True).rows[0]
     rs = sim.run_binary_sweep(cfg.BinarySimConfig(
@@ -278,8 +277,7 @@ def test_stream_midpoint_checkpoint_resume(tmp_path):
         return cfg.NBSimConfig(
             code="BDS.576.288.GF.64", batch_per_device=8, engine="stream",
             stream_steps=3,
-            decoder=cfg.NBDecoderConfig(method="qspa", max_iters=8,
-                                        kernel="jnp"),
+            decoder=cfg.NBDecoderConfig(method="qspa", max_iters=8),
             sweep=cfg.SweepConfig(snr_start=2.0, snr_step=1.0, snr_stop=2.0,
                                   least_error_frames=3,
                                   least_test_frames=400, max_frames=2000,

@@ -1,5 +1,5 @@
-"""Packed multi-SNR streaming sweep (VERDICT-r4 item 7): fused stream
-engines with per-slot SNR-point ids, interpret mode on CPU."""
+"""Packed multi-SNR streaming sweep: the jnp stream engines with per-slot
+SNR-point ids, checkpoints and kill/resume."""
 
 import jax
 import jax.numpy as jnp
@@ -11,32 +11,25 @@ from cuda_ldpc_tpu.models.nb_code import NBCode
 from cuda_ldpc_tpu.models.qc_binary import QCBinaryCode
 
 
-@pytest.fixture(autouse=True)
-def _interp(monkeypatch):
-    # callback-free Pallas interpreter for the fused dispatch on CPU (the
-    # force_tpu_interpret_mode simulator deadlocks under multi-device
-    # shard_map / sequential calls — see sim.PALLAS_INTERPRET)
-    monkeypatch.setattr(sim, "PALLAS_INTERPRET", True)
-
-
-def _bin_cfg(tmpdir_seed=0):
+def _bin_cfg(tmpdir_seed=0, batch_per_device=16):
     return cfg.BinarySimConfig(
         code="J4_L24_Z96",
-        decoder=cfg.BinaryDecoderConfig(max_iters=3, check="zero",
-                                        kernel="pallas"),
+        decoder=cfg.BinaryDecoderConfig(max_iters=3, check="zero"),
         sweep=cfg.SweepConfig(snr_start=4.0, snr_step=2.0, snr_stop=6.0,
                               snr_type="ebn0", least_error_frames=1,
                               least_test_frames=16, max_frames=64,
                               display_step=10**9, seed=tmpdir_seed),
-        batch_per_device=16, engine="stream", stream_steps=2)
+        batch_per_device=batch_per_device, engine="stream", stream_steps=2)
 
 
-def test_binary_stream_packed_sweep(tmp_path):
+@pytest.mark.parametrize("n_dev", [1, 8])
+def test_binary_stream_packed_sweep(tmp_path, n_dev):
+    """Full packed stream sweep (per-ITERATION refill) on a 1- and an
+    8-device mesh at the same global batch, then a checkpointed re-run."""
     ckpt = str(tmp_path / "ck.json")
-    # 1-device mesh keeps the interpret cost down; the multi-device
-    # shard_map path is covered by tests/test_shard.py
-    mesh = sim.get_mesh(jax.devices()[:1])
-    res = sim.run_binary_stream_packed(_bin_cfg(), mesh=mesh, quiet=True,
+    mesh = sim.get_mesh(jax.devices()[:n_dev])
+    scfg = _bin_cfg(batch_per_device=16 // n_dev)
+    res = sim.run_binary_stream_packed(scfg, mesh=mesh, quiet=True,
                                        checkpoint=ckpt)
     assert len(res.rows) == 2
     for r in res.rows:
@@ -49,21 +42,22 @@ def test_binary_stream_packed_sweep(tmp_path):
     # 6 dB should not be worse than 4 dB by more than MC noise allows here
     assert res.rows[1]["fer"] <= res.rows[0]["fer"] + 0.25
     # finished sweep re-run: short-circuits to the checkpointed rows
-    res2 = sim.run_binary_stream_packed(_bin_cfg(), mesh=mesh, quiet=True,
+    res2 = sim.run_binary_stream_packed(scfg, mesh=mesh, quiet=True,
                                         checkpoint=ckpt)
     assert [r["frames"] for r in res2.rows] == \
         [r["frames"] for r in res.rows]
 
 
-def test_nb_stream_packed_factory():
-    """One run+drain cycle of the NB packed stream factory: exactly-once
-    accounting across two points."""
+@pytest.mark.parametrize("method,steps", [("qspa", 2), ("layered_qspa", 4)])
+def test_nb_stream_packed_factory(method, steps):
+    """One run+drain cycle of the NB packed stream factory: per-iteration
+    refill adopts the driver's refill point id; exactly-once accounting
+    across two points."""
     code = NBCode.from_registry("BDS.576.288.GF.64")
     scfg = cfg.NBSimConfig(
         code="BDS.576.288.GF.64",
-        decoder=cfg.NBDecoderConfig(method="layered_qspa", max_iters=3,
-                                    kernel="pallas"),
-        batch_per_device=16, engine="stream", stream_steps=2)
+        decoder=cfg.NBDecoderConfig(method=method, max_iters=3),
+        batch_per_device=16, engine="stream", stream_steps=steps)
     sigmas = np.array([0.8, 0.9], np.float32)
     mesh = sim.get_mesh(jax.devices()[:1])
     init_fn, run_fn, drain_fn, B = sim.make_nb_stream_packed_fn(
@@ -83,53 +77,8 @@ def test_nb_stream_packed_factory():
     assert tot[:, 0].sum() >= B
     assert tot[1, 0] == 8                 # point 1 got no refills
     assert (tot[:, 1] <= tot[:, 0]).all()
-    # drain leaves every slot finished
-    assert (np.asarray(state[3])[:, 0] == 1).all()
-
-
-def test_binary_stream_packed_jnp_sweep(tmp_path):
-    """kernel='auto' routes to the jnp core with per-ITERATION refill (the
-    production-fast stream path) — full sweep on the 8-device mesh."""
-    scfg = cfg.BinarySimConfig(
-        code="J4_L24_Z96",
-        decoder=cfg.BinaryDecoderConfig(max_iters=3, check="zero",
-                                        kernel="auto"),
-        sweep=cfg.SweepConfig(snr_start=4.0, snr_step=2.0, snr_stop=6.0,
-                              snr_type="ebn0", least_error_frames=1,
-                              least_test_frames=16, max_frames=96,
-                              display_step=10**9),
-        batch_per_device=4, engine="stream", stream_steps=2)
-    res = sim.run_binary_stream_packed(scfg, quiet=True)
-    assert len(res.rows) == 2
-    for r in res.rows:
-        assert 16 <= r["frames"]
-        assert 0 <= r["error_frames"] <= r["frames"]
-
-
-def test_nb_stream_packed_jnp_factory():
-    """jnp NB packed stream: per-iteration refill adopts the driver's
-    refill point id; exactly-once accounting across two points."""
-    code = NBCode.from_registry("BDS.576.288.GF.64")
-    scfg = cfg.NBSimConfig(
-        code="BDS.576.288.GF.64",
-        decoder=cfg.NBDecoderConfig(method="layered_qspa", max_iters=3,
-                                    kernel="auto"),
-        batch_per_device=16, engine="stream", stream_steps=4)
-    sigmas = np.array([0.8, 0.9], np.float32)
-    mesh = sim.get_mesh(jax.devices()[:1])
-    init_fn, run_fn, drain_fn, B = sim.make_nb_stream_packed_fn(
-        code, scfg, sigmas, mesh)
-    key = jax.random.PRNGKey(0)
-    pid0 = jnp.asarray(np.arange(B, dtype=np.int32) % 2)
-    state = init_fn(key, pid0)
-    refill = jnp.asarray(np.zeros(B, np.int32))
-    state, c1 = run_fn(state, jax.random.fold_in(key, 1), refill)
-    state, c2 = drain_fn(state, jax.random.fold_in(key, 2))
-    c1, c2 = np.asarray(c1), np.asarray(c2)
-    tot = c1 + c2
-    assert tot[:, 0].sum() >= B
-    assert tot[1, 0] == 8          # point 1 never receives refills
-    assert (tot[:, 1] <= tot[:, 0]).all()
+    # drain leaves no live slot
+    assert not np.asarray(state[2]).any()
 
 
 def test_packed_stream_kill_resume(tmp_path):
@@ -139,8 +88,7 @@ def test_packed_stream_kill_resume(tmp_path):
     ckpt = str(tmp_path / "kr.json")
     scfg = cfg.BinarySimConfig(
         code="J4_L24_Z96",
-        decoder=cfg.BinaryDecoderConfig(max_iters=3, check="zero",
-                                        kernel="auto"),
+        decoder=cfg.BinaryDecoderConfig(max_iters=3, check="zero"),
         sweep=cfg.SweepConfig(snr_start=4.0, snr_step=2.0, snr_stop=6.0,
                               snr_type="ebn0", least_error_frames=1,
                               least_test_frames=64, max_frames=256,

@@ -1,9 +1,9 @@
-"""Throughput sweep over the whole BlockH family through the fused kernel.
+"""Throughput sweep over the whole BlockH family through bench.py.
 
 Runs bench.py (pipelined sustained info Mb/s, 10 fixed min-sum iterations)
 for every registered binary code and prints a markdown table row per code.
-The per-code numbers land in FAMILY.md; the driver headline stays bench.py's
-single JSON line on the flagship J15_L30_Z1280.
+Each code runs in its own bench.py process, one after another: the parent
+never imports JAX, so exactly one process holds the GPU at a time.
 
 Usage:  python tools/bench_family.py [--reps 4] [--codes A,B,...]
 """
@@ -26,7 +26,7 @@ def main() -> int:
     ap.add_argument("--codes", default=None,
                     help="comma-separated subset (default: all binary codes)")
     ap.add_argument("--timeout", type=float, default=900.0,
-                    help="per-code seconds (pallas compiles take 1-4 min)")
+                    help="per-code seconds, compile included")
     args = ap.parse_args()
 
     sys.path.insert(0, str(REPO))

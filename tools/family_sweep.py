@@ -56,8 +56,8 @@ def main() -> int:
                 least_error_frames=10 if fast else 50,
                 least_test_frames=256 if fast else 5000,
                 max_frames=2048 if fast else 200_000, display_step=10**9),
-            # large batches amortize the ~25-30 ms flat per-call dispatch
-            # cost (BENCH.md); small codes get more frames per call
+            # large batches amortize the per-call dispatch cost; small
+            # codes get more frames per call
             batch_per_device=32 if fast else max(
                 2048, 2048 * (38400 // code.n)))
         res = sim.run_binary_sweep_packed(simcfg, quiet=True)

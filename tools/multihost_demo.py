@@ -3,9 +3,9 @@
 Worker mode (spawned once per "host"):
   python tools/multihost_demo.py worker <coordinator> <num_procs> <pid> [devices_per_proc]
 
-Each process contributes ``devices_per_proc`` virtual CPU devices; the mesh
-spans all processes' devices and the same SPMD sweep step runs everywhere
-(this is exactly how real multi-host TPU runs work — one process per host,
+A CPU-only demo: each process contributes ``devices_per_proc`` virtual CPU
+devices; the mesh spans all processes' devices and the same SPMD sweep step
+runs everywhere (the multi-host layout: one process per host,
 `jax.distributed.initialize`, identical program).  Process 0 prints rows.
 
 Launcher mode:
@@ -47,28 +47,10 @@ def worker(coordinator: str, num_procs: int, pid: int, dev_per_proc: int) -> int
         batch_per_device=4)
     res = sim.run_binary_sweep(simcfg, mesh=mesh, quiet=pid != 0)
 
-    # Fused-kernel sweep over the SAME multi-process mesh: kernel='pallas'
-    # routes through parallel/shard.shard_binary_decode (shard_map
-    # partitions the pallas_call per device), with sim.PALLAS_INTERPRET
-    # standing in for Mosaic on the CPU backend (the callback-free
-    # interpreter; pltpu.force_tpu_interpret_mode's simulator deadlocks
-    # under multi-device shard_map — see sim.PALLAS_INTERPRET).
-    import dataclasses
-
-    sim.PALLAS_INTERPRET = True
-    fused_cfg = dataclasses.replace(
-        simcfg,
-        decoder=dataclasses.replace(simcfg.decoder, kernel="pallas",
-                                    max_iters=4),
-        sweep=dataclasses.replace(simcfg.sweep, snr_stop=3.6, max_frames=64))
-    res2 = sim.run_binary_sweep(fused_cfg, mesh=mesh, quiet=pid != 0)
-    sim.PALLAS_INTERPRET = False
-
     if pid == 0:
         total = sum(r["frames"] for r in res.rows)
-        fused = sum(r["frames"] for r in res2.rows)
         print(f"MULTIHOST_OK procs={num_procs} devices={jax.device_count()} "
-              f"frames={total} fused_frames={fused}", flush=True)
+              f"frames={total}", flush=True)
     return 0
 
 

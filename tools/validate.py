@@ -2,8 +2,8 @@
 
 Runs FER sweeps for the reference's flagship configurations and records the
 curves beside the historical reference data (myNBLDPC/FER_test.txt), plus
-kernel-parity spot checks and throughput numbers.  Intended to run on the real
-TPU (slow); CPU works with reduced frame budgets.
+parity spot checks and throughput numbers.  Intended to run on the GPU
+(slow); CPU works with reduced frame budgets.
 
 Usage: python tools/validate.py [--fast] [--out VALIDATION.md]
 """
